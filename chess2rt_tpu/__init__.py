@@ -1,4 +1,4 @@
-"""chess2rt_tpu — a TPU-native differentiable Whitted-style ray-tracing framework.
+"""chess2rt_tpu — a differentiable Whitted-style ray-tracing framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the Chess2RT
 reference renderer (a CPU ray tracer written in D):
@@ -12,7 +12,7 @@ reference renderer (a CPU ray tracer written in D):
   fixed-depth wavefront pipeline over dense ray batches under one `jit`,
   differentiable end-to-end w.r.t. every continuous scene parameter.
 - Scaling: pixel tiles are sharded over a `jax.sharding.Mesh`; scene params
-  are replicated and gradients all-reduced with `psum` over ICI.
+  are replicated and gradients all-reduced with one `psum`.
 
 Layout:
     utils/     vec3 math, color/sRGB, diagnostics (occupancy, NaN sweeps)
@@ -20,7 +20,7 @@ Layout:
     scene/     SDLang + JSON scene loading (the compatibility surface)
     models/    typed scene object model + packed differentiable pytrees
     ops/       device kernels: ray-gen, intersect, CSG, textures, shading,
-               environment cubemap, fused Pallas primary pass
+               environment cubemap, fused Pallas (Triton) primary pass
     render/    the wavefront render pipeline, buckets, async dispatch
     parallel/  mesh construction, sharded rendering, gradient all-reduce
     grad/      inverse-rendering optimisation + checkpoint/resume
@@ -32,18 +32,16 @@ Layout:
 
 __version__ = "0.1.0"
 
-# Matmul precision policy: XLA lowers float32 matmuls onto the TPU MXU as
-# bfloat16-input passes BY DEFAULT, silently truncating operands to 8
-# mantissa bits.  For neural nets that is the right trade; for a renderer
-# whose camera basis and node transforms are 3x3 matmuls it is
-# catastrophic — measured on TPU v5e, the default left only 42% of
-# lecture5's pixels within 1 u8 step of the f32 CPU render (max error
-# 195/255, every ray corrupted through the camera frame), while HIGHEST
-# restores CPU-exact output.  The matmuls this framework runs are either
-# tiny (3x3 transforms, [N, n_nodes] one-hot gathers) or f32-accumulating
-# gradient contractions, so full-precision passes cost ~nothing here.
-# Set as the package-wide default so every entry point (render, grad,
-# sharded mesh, Pallas XLA glue) traces with it.
+# Matmul precision policy: a float32 matmul may run in reduced precision
+# by default (TF32 on the GPU's tensor cores keeps ~10 mantissa bits).  For
+# a renderer whose camera basis and node transforms are 3x3 matmuls that
+# moves rays by whole pixels at the horizon, so the package pins full f32
+# precision.  The matmuls this framework runs are either tiny (3x3
+# transforms, [N, n_nodes] one-hot gathers) or f32-accumulating gradient
+# contractions, so full-precision passes cost ~nothing here.  Set as the
+# package-wide default so every entry point (render, grad, sharded mesh,
+# Pallas XLA glue) traces with it; chip_smoke.py's 96x54 oracle gate
+# checks it on the card.
 import jax as _jax
 
 _jax.config.update("jax_default_matmul_precision", "highest")

@@ -1,7 +1,7 @@
 """Checkpoint / resume for scene-parameter + optimizer pytrees.
 
 The reference has no training-sense checkpointing (SURVEY.md §5.4); this is
-the TPU-native equivalent owed for the inverse-rendering loop: periodic
+the equivalent owed for the inverse-rendering loop: periodic
 snapshots of the ScenePacked pytree and optimizer state as a flat .npz
 (no external deps), restartable after failure (§5.3: render jobs are
 stateless per tile; the optimization loop is the only stateful part).

@@ -41,10 +41,6 @@ class InverseProblem:
     checkpoint_path: Optional[str] = None
     checkpoint_every: int = 50
     mesh: object = None  # jax.sharding.Mesh for distributed fitting
-    # fit() flips use_pallas on for TPU by default (the fused custom-VJP
-    # forward); False keeps static.use_pallas as passed — e.g. to A/B the
-    # pinned-discrete gradients against the exact XLA VJP
-    auto_pallas: bool = True
     # True (default): fold the RNG key per step — proper SGD on the
     # expected loss for stochastic pipelines (DoF/GI), converging to the
     # MC noise floor.  False: the SAME key every step — the MC render
@@ -95,16 +91,10 @@ def fit(
     static, target = problem.static, problem.target
 
     if "bitmap_atlas" not in problem.train_fields and static.train_textures:
-        # texel cotangents are the most expensive part of the backward
-        # (sorted scatter-add); when the atlas isn't being optimized the
+        # texel cotangents are an expensive part of the backward (a
+        # scatter-add per ray); when the atlas isn't being optimized the
         # grads would be masked to zero anyway — stop them at the source
         static = dataclasses.replace(static, train_textures=False)
-
-    if problem.auto_pallas and not static.use_pallas and jax.default_backend() == "tpu":
-        # the fused kernel is differentiable (ops/pallas_grad.py custom
-        # VJP), so inverse rendering defaults to it on TPU; render_frame
-        # still falls back to pure XLA for unsupported scene structures
-        static = dataclasses.replace(static, use_pallas=True)
 
     if problem.mesh is not None:
         from ..parallel.mesh import make_sharded_value_and_grad

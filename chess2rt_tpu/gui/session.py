@@ -3,8 +3,8 @@
 The reference's GUI stack (gui/{app_sceleton,gui_base,sdl2_gui,
 raytracer_demo}.d) is an SDL2 window around four capabilities:
 camera-drive (WASD/arrows/mouse with Shift/Ctrl modifiers), R = scene
-reload, F12 = screenshot, left-click = pixel debug dump.  On TPU pods a
-windowing toolkit is out of scope (SURVEY.md §7.1 step 10); this class
+reload, F12 = screenshot, left-click = pixel debug dump.  On a headless
+accelerator host a windowing toolkit is out of scope (SURVEY.md §7.1 step 10); this class
 provides the identical control surface over a pluggable display callback,
 so a thin local viewer (terminal preview, notebook widget, or an actual
 SDL window on a workstation) can wrap it.
@@ -85,7 +85,6 @@ class InteractiveSession:
         import dataclasses
 
         import jax
-        import jax.numpy as jnp
 
         from ..models.packed import pack_scene
         from ..render.pipeline import render_frame
@@ -93,10 +92,6 @@ class InteractiveSession:
         scale = self.preview_scale if preview else 1
         key = (scale,)
         packed, static = pack_scene(self.scene, dtype=self.dtype)
-        if static.nodes and self.dtype != jnp.float64:
-            # interactive sessions ride the fused kernel when supported
-            # (render_frame falls back to XLA off-TPU / uncovered scenes)
-            static = dataclasses.replace(static, use_pallas=True)
         if preview:
             # the prepass role (renderer.d:110-127): coarse low-res render
             static = dataclasses.replace(

@@ -8,7 +8,7 @@ consumers for the session's display role:
 
 * ``TerminalViewer`` — dependency-free 24-bit ANSI renderer using
   half-block characters (two pixels per character cell), works over SSH on
-  a TPU pod.
+  a headless GPU host.
 * ``SDL2Viewer`` — a real window when ``pysdl2`` is importable (never a
   hard dependency).
 * ``progressive_render`` — the reference's visible behavior: coarse

@@ -173,10 +173,9 @@ class SceneStatic:
     compensated_raygen: bool = False
     # bound peak device memory: render the pixel batch in lax.map slabs of
     # this many rays (None = whole frame at once); honored by the XLA
-    # pipeline (render_frame), by the fused Pallas renderer in the
-    # deterministic, DoF/stereo MC and GI paths (slabs through slab-width
-    # kernels — an un-chunked 8K frame OOMs a 16 GB v5e), and PER SHARD
-    # under the mesh (parallel/mesh.py)
+    # pipeline (render_frame), by the fused renderer in the deterministic,
+    # DoF/stereo MC and GI paths (slabs through slab-width kernels), and
+    # PER SHARD under the mesh (parallel/mesh.py)
     chunk_pixels: Optional[int] = None
     # wavefront compaction (fast_forward only): bounce rounds 1+ run on a
     # compacted ray buffer of this many lanes when the live set fits
@@ -184,69 +183,53 @@ class SceneStatic:
     bounce_capacity: Optional[int] = None
     # fused-kernel bounce strategy (build_flagship_renderer):
     # "compact" re-enters the ray-input kernel at bounce_capacity width
-    # (sort + gather + scatter-back, ~10.8 ms/tap fixed at 1080p);
-    # "full" re-enters it at full frame width with an all-dead cond-skip —
-    # no compaction machinery at all.  With the kernel making the per-ray
-    # round cost tiny, "full" wins whenever the combine's per-index gather
-    # cost at full width undercuts the compaction fixed cost (measured on
-    # the flagship: demos/compaction_probe.py, demos/forward_probe.py);
-    # "block" (default) compacts whole 128-lane blocks (the continuation
-    # set is spatially clustered): the compaction sort shrinks n/128-fold
-    # and the writeback is a handful of unique block-row adds, while the
-    # rounds still run near-compacted width — measured 1.9x the flagship
-    # frame vs "full" and 1.2x the grad step vs lane-"compact"
-    # (demos/block_probe.py, demos/bounce_mode_probe.py); needs no
-    # bounce_capacity and falls back when n % 128 != 0
+    # (sort + gather + scatter-back of individual lanes); "full"
+    # re-enters it at full frame width with an all-dead cond-skip and no
+    # compaction machinery; "block" (default) compacts whole 128-lane
+    # blocks (the continuation set is spatially clustered), so the
+    # compaction sort runs over n/128 keys and the writeback is a handful
+    # of unique block-row adds while the rounds still run near-compacted
+    # width; needs no bounce_capacity and falls back when n % 128 != 0
     bounce_mode: str = "block"
-    # "block" capacity in 128-lane blocks (None = frame_blocks/12, round
-    # 3's flagship headroom x2); overflow lax.cond-falls-back to full width
+    # "block" capacity in 128-lane blocks (None = frame_blocks/12);
+    # overflow lax.cond-falls-back to full width
     bounce_block_capacity: Optional[int] = None
     # GI path tracing: evaluate this many MC paths per kernel launch
     # (lanes = batch x pixels).  The RNG key chains are unrolled exactly
     # (every lane draws the same uniforms as the sequential scan; only
-    # the f32 accumulation order changes).  Measured on v5e round 3:
-    # batching LOSES — K=8 ran 77.4 vs 57.7 ms sequential at 640x480
-    # 40pp; per-path dead-round cond-skips beat the launch amortization
-    # (a batch runs round r if ANY of its K paths is alive).  Default 1.
+    # the f32 accumulation order changes).  A batch runs round r if ANY of
+    # its paths is alive, so per-path dead-round skips are lost.  Default 1.
     gi_path_batch: Optional[int] = None
     # Rematerialize each GI path iteration in the backward pass
     # (jax.checkpoint around the paths_per_pixel scan body): reverse-mode
     # AD otherwise stacks every bounce round's [n, 3] residuals x
-    # paths_per_pixel, which OOMs the 1080p GI grad step (round 5).  Costs
-    # one extra forward per path in the backward; value-identical.
+    # paths_per_pixel.  Costs one extra forward per path in the backward;
+    # value-identical.
     gi_remat_paths: bool = False
-    # False stops gradients at the bitmap texel atlas: its VJP is a
-    # per-ray scatter-add (slow on TPU); disable when texels aren't being
-    # optimized
+    # False stops gradients at the bitmap texel atlas (its VJP is a
+    # per-ray scatter-add); disable when texels aren't being optimized
     train_textures: bool = True
-    # AA-tap texel-gather reuse (round-4, MEASURED A LOSS on the flagship
-    # — default False): each AA tap reuses the base tap's gathered [n, 12]
-    # quads and re-gathers only changed-key lanes (lane-compacted: one
-    # n-key sort + small row gather + scatter-set; bit-identical, overflow
-    # cond-falls back to the full gather).  The premise "sub-pixel offsets
-    # rarely change the quad" holds only for MAGNIFIED textures: the
-    # flagship's horizon floor + globe are minified, so 30-53% of lanes
-    # change key per tap (probe 2026-08-19) and the bench read 67.8 vs
-    # 65.5 ms.  Kept for magnified-texture scenes.
+    # AA-tap texel-gather reuse (default False): each AA tap reuses the
+    # base tap's gathered [n, 12] quads and re-gathers only changed-key
+    # lanes (lane-compacted: one n-key sort + small row gather +
+    # scatter-set; bit-identical, overflow cond-falls back to the full
+    # gather).  The premise "sub-pixel offsets rarely change the quad"
+    # holds only for MAGNIFIED textures; minified ones (a horizon floor)
+    # change key on a large share of lanes per tap.
     texel_tap_reuse: bool = False
     # changed-lane capacity per tap (None = frame_pixels // 8)
     texel_reuse_capacity: Optional[int] = None
-    # texel-cotangent accumulation strategy (ops/shade._quad_gather):
-    # "histogram" sorts by texel key then accumulates via per-tile one-hot
-    # matmuls on the MXU (ops/texel_hist.py — fastest measured);
-    # "sorted" pre-sorts so the scatter-add is monotone;
-    # "scatter" is the naive duplicate-index scatter-add
-    texel_grad_mode: str = "histogram"
-    # use the fused Pallas primary kernel when the scene is supported
-    # (ops/pallas_trace.supports); differentiable via the custom-VJP
-    # wrapper (ops/pallas_grad.py), so inverse rendering dispatches too
-    use_pallas: bool = False
-    # run the Pallas kernels in interpreter mode (CPU testing of the fused
-    # path without a TPU; also lets render_frame dispatch to it off-TPU)
+    # render through the fused Pallas kernel when the scene is supported
+    # (ops/pallas_trace.supports) and the backend compiles it (the GPU;
+    # see chess2rt_tpu/dispatch.py); differentiable via the custom-VJP
+    # wrapper (ops/pallas_grad.py), so inverse rendering dispatches too.
+    # False forces the XLA wavefront (the reference path for A/B checks)
+    use_pallas: bool = True
+    # run the fused kernel in the Pallas interpreter on the CPU (tests);
+    # ignored on the GPU, which always runs the compiled kernel
     interpret_pallas: bool = False
     # rematerialize wavefront rounds in the backward pass (jax.checkpoint):
-    # scan residuals with [N, 1] trailing dims get 128x-padded by TPU
-    # tiling and can blow HBM; recompute is cheap relative to that
+    # recompute is cheap relative to holding every round's residuals
     remat_rounds: bool = True
 
     @property

@@ -1,6 +1,6 @@
-"""Double-float (two-float) f32 arithmetic — emulated ~f64 on TPU.
+"""Double-float (two-float) f32 arithmetic — emulated ~f64 in f32 code.
 
-TPU has no hardware float64; a value is carried as an unevaluated sum
+A value is carried as an unevaluated sum
 ``hi + lo`` of two float32s (|lo| <= 0.5 ulp(hi)), giving ~48 bits of
 significand — enough that a result rounded back to f32 is CORRECTLY
 ROUNDED for every quantity this module is used on.
@@ -13,7 +13,7 @@ amplification (~700x on lecture5) turns into whole-texel UV errors.
 Interpolating df32 corners and rounding the final direction to f32
 removes that tail (tests/test_parity.py::TestF32Production).
 
-All functions are branch-free elementwise jnp ops (jit/TPU-friendly).
+All functions are branch-free elementwise jnp ops (jit-friendly).
 The error-free transforms (two_sum, two_prod via Dekker splitting — no
 FMA dependence) require IEEE f32 semantics without reassociation, which
 XLA preserves (it never licenses fast-math reassociation of user ops).

@@ -12,7 +12,7 @@ with per-face (u, v) from the two minor axes over the major magnitude.
 
 Split into quads/plan/sample so the fused render path can MERGE the miss
 gather with the deferred bitmap-texel gather into one per-ray row gather
-(XLA's TPU gather cost is per-index — ops/fastgather.py).
+(one index per ray instead of two).
 """
 
 from __future__ import annotations
@@ -72,12 +72,8 @@ def cubemap_plan(cubemap, dir):
 
 def sample_cubemap(cubemap, dir):
     """cubemap [6, S, S, 3], dir [..., 3] (need not be normalized) -> [..., 3]."""
-    from .fastgather import row_gather
     from .shade import bilerp_quad
 
     key, p, q = cubemap_plan(cubemap, dir)
-    # fold=True: a 512-face cubemap's quad table (6*512*512 rows) is past
-    # the u16 fast-gather row cliff; K-row folding keeps the per-miss-ray
-    # gather in the fast zone, matching the merged bitmap+env path
-    g = row_gather(cubemap_quads(cubemap), key, fold=True)
+    g = cubemap_quads(cubemap)[key]
     return bilerp_quad(g, p, q)

@@ -1,6 +1,6 @@
 """Device-side geometry intersection (JAX/XLA).
 
-TPU-first re-design of the reference intersectors (source/rt/geometry.d,
+Wavefront re-design of the reference intersectors (source/rt/geometry.d,
 source/rt/node.d):
 
 * All ops are batched over a flat ray set ``orig/dir [N, 3]`` and return
@@ -131,9 +131,9 @@ def _safe_sqrt(x):
 @_safe_sqrt.defjvp
 def _safe_sqrt_jvp(primals, tangents):
     # sqrt' = 1/(2 sqrt(x)) is infinite at x = 0: a ray exactly grazing a
-    # sphere (discriminant 0 — fp-real on TPU, where the fused kernel's
-    # Mosaic arithmetic can report a hit the XLA backward recompute sees
-    # at D <= 0) poisons sphere/offset/camera gradients with inf.  Forward
+    # sphere (discriminant 0 — fp-real where the fused kernel's
+    # arithmetic can report a hit the XLA backward recompute sees at
+    # D <= 0) poisons sphere/offset/camera gradients with inf.  Forward
     # stays exact; the derivative is clamped like _safe_arcsin's.
     (x,), (t,) = primals, tangents
     return jnp.sqrt(x), t * 0.5 * jax.lax.rsqrt(jnp.maximum(x, 1e-8))
@@ -223,7 +223,7 @@ def _cube_face_candidates(center, side, orig, dir, tangents=False):
 
 
 def cube_closest(center, side, orig, dir, tangents=False):
-    """Running-min select over the 6 faces (argmin + gather is slow on TPU)."""
+    """Running-min select over the 6 faces (no argmin + per-ray gather)."""
     faces = _cube_face_candidates(center, side, orig, dir, tangents)
     vec_keys = ("normal", "p", "dndx", "dndy") if tangents else ("normal", "p")
     scal_keys = ("dist", "u", "v")
@@ -247,8 +247,7 @@ def cube_closest(center, side, orig, dir, tangents=False):
 def _oddeven_pairs(n: int):
     """Batcher odd-even mergesort compare-exchange pairs for n slots.
     Static network -> pure min/max selects, NO gathers (argsort +
-    take_along_axis lower to per-ray gathers, which are catastrophically
-    slow on TPU — a CSG scene ran 19x faster after this change)."""
+    take_along_axis lower to per-ray gathers)."""
     pairs = []
 
     def merge(lo, nn, r):

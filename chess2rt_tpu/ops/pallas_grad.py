@@ -1,12 +1,11 @@
 """Differentiable fused round-0: custom-VJP wrapper over the Pallas kernel.
 
-Round-3 headline item: inverse rendering (the framework's north star,
-grad/inverse.fit) previously ran its forward through the ~18x-slower pure
-XLA wavefront because the fused kernel (ops/pallas_trace.py) had no VJP.
-This module gives it one:
+Inverse rendering (the framework's north star, grad/inverse.fit) runs its
+forward through the fused kernel (ops/pallas_trace.py), which has no VJP
+of its own.  This module gives it one:
 
 * **forward** = the fused Pallas kernel itself (ray-gen + closest-hit +
-  shadow scans + direct shading in VMEM);
+  shadow scans + direct shading in registers);
 * **backward** = ``jax.vjp`` of an XLA *re-shade* that recomputes the
   kernel's continuous math with the discrete structure PINNED to the
   kernel's own decisions, saved as kernel outputs:
@@ -165,10 +164,7 @@ def leaf_pinned_record(packed, static, orig, dir, gleaf, sel, n_pin, tangents=Fa
     pinned leaf these are closed forms too (plane/cube: face constants,
     geometry.d:47-53/:227-228; sphere: the azimuth frame, :110-122).  The
     CSG diff flip applies to the normal only, never the tangents, exactly
-    like all_hits_expr.  NB: this leaf-pinned form is also the only
-    tangent path that COMPILES on real TPU — the full tangent-carrying
-    traversal (scene_closest(tangents=True)) crashes the XLA TPU fusion
-    pass (SIGILL, demos/bump_probe.py)."""
+    like all_hits_expr."""
     leaves, _ = leaf_table(static)
     rec = None
     space = {}
@@ -181,9 +177,7 @@ def leaf_pinned_record(packed, static, orig, dir, gleaf, sel, n_pin, tangents=Fa
             cand = G.plane_closest(packed.plane_y[k], packed.plane_limit[k], o_l, d_l)
             if tangents:
                 # world-space constants per node (geometry.d:47-53): computed
-                # as [3] vectors THEN broadcast — a broadcast-constant [N,3]
-                # through `@ m` + _norm is the exact op pattern that SIGILLs
-                # the TPU fusion pass (demos/bump_probe.py bisect)
+                # as [3] vectors THEN broadcast
                 cand["dndx"] = jnp.broadcast_to(
                     _tangent_row(packed, static, i, (1.0, 0.0, 0.0)), o_l.shape
                 )
@@ -779,7 +773,7 @@ def build_bump_round0(
     """Hybrid round-0 for bump scenes, same call shapes / output keys as
     ``build_diff_round0``: the fused kernel pins the discrete structure
     (win + per-light vis + winning t/normal/u/v/diffuse — closest-hit AND
-    the shadow any-hit scans stay in VMEM) and the XLA side applies the
+    the shadow any-hit scans stay in-kernel) and the XLA side applies the
     BumpTexture normal perturbation before lighting (renderer.d:370-372
     hook order).
 
@@ -789,23 +783,17 @@ def build_bump_round0(
       STRAIGHT from the kernel's saved outputs, tangents reconstructed
       from the raw normal (reconstruct_tangents) — no leaf
       re-intersection; only bump + lighting + assembly run in XLA.
-      Measured 55.9 vs 87.0 ms on the 1080p AA5 bump probe (fast-gate
-      scene vs the all-bumped slow-gate scene; bump-off floor 13.2).
-      Grad steps pay ~+0.7 ms vs the plain-reshade forward (the backward
-      re-derives the reshade primal) — the right trade: forward-only
-      rendering is the hot case;
+      Grad steps re-derive the reshade primal in the backward — the
+      right trade: forward-only rendering is the hot case;
     * **differentiable reshade** (the custom-VJP backward, and the whole
       path for scenes with bump-mapped CSG nodes): tangent-carrying
       leaf-pinned records (leaf_pinned_record(tangents=True)), through
       which camera/geometry/material cotangents flow.
 
     Why a hybrid and not in-kernel bump: the perturbed normal feeds the
-    in-kernel lighting sums, so the deferred-texel trick cannot compose —
-    and Mosaic has no per-lane vector gather for the bump atlas (the same
-    reason bitmap texels defer to XLA, CLAUDE.md rule 7).  Why not the XLA
-    wavefront: ``scene_closest(tangents=True)`` crashes the XLA TPU
-    compiler outright (fusion-pass SIGILL, demos/bump_probe.py), so this
-    hybrid is ALSO the only path that renders bump scenes on real TPU.
+    in-kernel lighting sums, so the deferred-texel trick cannot compose
+    while the bump atlas is sampled outside the kernel (the same split as
+    bitmap texels).
 
     Divergence caveat vs the XLA wavefront (same class as the custom-VJP
     discrete-pin caveat above): the kernel's shadow-ray origin offsets

@@ -1,6 +1,6 @@
 """Device-side texturing and direct shading (texture.d, shader.d).
 
-TPU-first design: instead of per-node virtual dispatch, material and texture
+Wavefront design: instead of per-node virtual dispatch, material and texture
 parameters live in node-indexed tables (ScenePacked) and are *gathered* by
 the per-ray winning-node id, so the whole batch shades in one fused pass —
 in particular the shadow-visibility scan over nodes runs once per light for
@@ -58,12 +58,12 @@ def static_select(winc, values, dtype=jnp.int32):
     """Per-ray lookup of a STATICALLY-known per-node value via a
     compare-select chain instead of a table gather.
 
-    ``tab[winc]`` with a tiny device table lowers to a per-ray gather —
-    ~latency-bound on TPU, the same cost class as a full texture fetch.
+    ``tab[winc]`` with a tiny device table lowers to a per-ray gather.
     The per-node values here (shader kind, texture kind, bitmap index)
     are Python constants, so a chain of ``where(winc == i, v_i, ...)``
-    compiles to pure VPU compares/selects, collapsing runs of equal
-    values.  O(#distinct values) selects, zero gathers."""
+    compiles to elementwise compares/selects that fuse with their
+    neighbours, collapsing runs of equal values.  O(#distinct values)
+    selects, zero gathers."""
     values = list(values)
     if not values:
         return jnp.zeros(winc.shape, dtype)
@@ -87,8 +87,8 @@ def node_onehot(static: SceneStatic, winc):
 
     Node-table lookups go through this as contractions (onehot @ table)
     instead of index-gathers: the VJP of a gather is a per-ray scatter-add
-    (very slow on TPU), while the VJP of the contraction is a matmul on
-    the MXU.  Forward cost is negligible at scene-sized tables."""
+    with heavy index duplication, while the VJP of the contraction is a
+    matmul.  Forward cost is negligible at scene-sized tables."""
     n_nodes = max(len(static.nodes), 1)
     return (winc[..., None] == jnp.arange(n_nodes)).astype(jnp.float32)
 
@@ -206,9 +206,8 @@ def bitmap_plan(packed: ScenePacked, static: SceneStatic, winc, u, v, onehot=Non
     # ONE 12-float gather per ray instead of 4 taps: quad[y, x] holds
     # the 2x2 bilinear neighbourhood with the reference's edge wrap
     # (bitmap.d:55-56), built in-graph so texel gradients stay exact.
-    # The table is UNPADDED (concatenated true h*w blocks, not Hmax*Wmax):
-    # row count is what gates the u16 fast-gather zone (ops/fastgather.py),
-    # and lecture5's padded table is 640k rows vs 385k true texels.
+    # The table is UNPADDED (concatenated true h*w blocks, not Hmax*Wmax),
+    # so the gather and its cotangent scatter touch only true texels.
     quads2d = _quad_atlas_flat(atlas, static.bitmap_sizes)
     key = _quad_row_key(
         static.bitmap_sizes, winc,
@@ -221,28 +220,21 @@ def bitmap_color(packed: ScenePacked, static: SceneStatic, winc, u, v, onehot=No
     """Bilinear bitmap sample for the winning node's texture.
 
     Exposed standalone so the fused Pallas path (ops/pallas_trace.py) can
-    defer exactly this gather to XLA: Mosaic has no per-lane dynamic
-    indexing, so the kernel emits (win, u, v) and this function turns them
-    into texels."""
+    defer exactly this gather to XLA: the kernel emits (win, u, v) and
+    this function turns them into texels."""
     quads2d, key, p, q = bitmap_plan(packed, static, winc, u, v, onehot)
-    g = quad_gather_flat(static.texel_grad_mode, quads2d, key)  # [N, 12]
+    g = quad_gather_flat(quads2d, key)  # [N, 12]
     return bilerp_quad(g, p, q)
 
 
 # --------------------------------------------------------------------------
-# Texel-gradient custom VJP (round-2 VERDICT item 2)
+# Texel-gradient custom VJP
 # --------------------------------------------------------------------------
 #
 # The VJP of the per-ray quad gather is a scatter-add of [N, 12] cotangents
-# into the quad atlas — with heavy index duplication (many rays land on the
-# same texel), XLA's TPU scatter serializes and was 54% of a whole
-# fwd+bwd step in round 1.  ``sorted`` mode pre-sorts the cotangents by
-# flat texel key (lax.sort is a gather-free bitonic network on TPU) so the
-# scatter-add sees monotonically non-decreasing indices
-# (indices_are_sorted=True), which XLA lowers far more efficiently than
-# the duplicate-random-order scatter.  Both modes are bit-exactly the same
-# gradient (addition order within a texel differs — covered by the FD
-# tests at their tolerance).
+# into the quad atlas, with heavy index duplication (many rays land on the
+# same texel); the GPU runs it with float atomics.  Cotangents of
+# out-of-range keys are dropped, not added to the clamped row.
 
 
 def _f0(x):
@@ -251,88 +243,24 @@ def _f0(x):
     return np.zeros(x.shape, dtype=jax.dtypes.float0)
 
 
-from functools import partial  # noqa: E402
-
-
-@partial(jax.custom_vjp, nondiff_argnums=(0,))
-def quad_gather_flat(mode, table, key):
+@jax.custom_vjp
+def quad_gather_flat(table, key):
     """``table[key]`` for a flat [rows, C] quad table with the texel-grad
-    custom VJP (histogram / sorted / plain scatter cotangent accumulation)
-    and the u16-pair fast gather forward (ops/fastgather.py).  Shared by
-    the bitmap-atlas gather and the merged bitmap+cubemap gather."""
-    from .fastgather import row_gather_raw
-
-    return row_gather_raw(table, key, fold=True)
+    scatter-add VJP.  Shared by the bitmap-atlas gather and the merged
+    bitmap+cubemap gather."""
+    return table[key]
 
 
-def _qgf_fwd(mode, table, key):
-    from .fastgather import row_gather_raw
-
+def _qgf_fwd(table, key):
     # zero-width slice: carries the row count + dtype statically at no cost
-    return row_gather_raw(table, key, fold=True), (key, table[:, :0])
+    return table[key], (key, table[:, :0])
 
 
-def _payload_sort(kf, gf):
-    """Stable 1+C-operand sort of cotangent rows by texel key: returns
-    (sorted keys, sorted [n, C] payload)."""
-    ops = (kf,) + tuple(gf[:, c] for c in range(gf.shape[-1]))
-    s = jax.lax.sort(ops, num_keys=1)
-    return s[0], jnp.stack(s[1:], axis=-1)
-
-
-def _qgf_bwd(mode, res, g):
+def _qgf_bwd(res, g):
     key, proto = res
-    n_rows = proto.shape[0]
     C = g.shape[-1]
-    flat_n = key.reshape(-1).shape[0]
-    kf = key.reshape(flat_n)
-    gf = g.reshape(flat_n, C)
-    # the MXU histogram kernel is f32-only (bf16 hi/lo split of f32
-    # cotangents); f64 (jax_enable_x64 oracle-parity runs) falls through
-    # to the sorted monotone scatter, which is dtype-generic
-    if mode == "histogram" and flat_n > 1 and gf.dtype == jnp.float32:
-        # sort, then accumulate on the MXU (ops/texel_hist.py) instead of
-        # the monotone scatter-add.  HOW to sort is gated by lane count:
-        #
-        # * small batches (<= the u16 fast-gather zone): only (key,
-        #   lane-id) go through the bitonic sort and the payload follows
-        #   via one permutation row gather — a 13-operand payload sort
-        #   costs ~operand-count times the 2-operand one while the perm
-        #   gather is ~free in the fast zone (round-3 grad probe);
-        # * LARGE batches: the [flat_n, 12] cotangent "table" exceeds the
-        #   gather fast zone, where EVERY gather flavor collapses to
-        #   ~25 ns/row (round 4, v5e at 2.07M lanes: plain perm gather
-        #   49 ms, slab-folded u16 57 ms) — the 13-operand sort (23.3 ms)
-        #   beats 2-op sort + gather (51.6 ms) outright.
-        from .fastgather import U16_FAST_ROWS, row_gather_raw
-        from .texel_hist import texel_histogram
-
-        if flat_n > U16_FAST_ROWS:
-            sk, sg = _payload_sort(kf, gf)
-        else:
-            perm = jax.lax.iota(jnp.int32, flat_n)
-            sk, sperm = jax.lax.sort((kf, perm), num_keys=1)
-            sg = row_gather_raw(gf, sperm, fold=True)
-        dq = texel_histogram(
-            sk,
-            sg,
-            n_rows,
-            interpret=jax.default_backend() != "tpu",
-        )
-        return dq, _f0(key)
-    if mode in ("sorted", "histogram") and flat_n > 1:  # histogram: f64 fallthrough
-        # sort the payload columns along with the key: a (key, perm)
-        # 2-operand sort followed by a [N, 12] permutation gather measured
-        # SLOWER in the full grad step (the permutation gather is the
-        # per-ray-gather cost class this path exists to avoid)
-        sk, sg = _payload_sort(kf, gf)
-        dq = (
-            jnp.zeros((n_rows, C), g.dtype)
-            .at[sk]
-            .add(sg, indices_are_sorted=True, mode="drop")
-        )
-    else:
-        dq = jnp.zeros((n_rows, C), g.dtype).at[kf].add(gf, mode="drop")
+    kf = key.reshape(-1)
+    dq = jnp.zeros((proto.shape[0], C), g.dtype).at[kf].add(g.reshape(-1, C), mode="drop")
     return dq, _f0(key)
 
 
@@ -394,12 +322,9 @@ def apply_bump(packed: ScenePacked, static: SceneStatic, winc, hit, onehot=None)
     iy = jnp.clip(jnp.floor(ty), 0, h - 1)
     p = (tx - ix)[..., None]
     q = (ty - iy)[..., None]
-    from .fastgather import row_gather_raw
-
     # ONE [rows, 8] quad-row gather instead of 4 separate taps — the same
-    # bilinear-texturing lever as bitmap_plan (gather cost is per-index on
-    # TPU; measured ~10 ms/tap off the 1080p bump hybrid frame).  The quad
-    # table is UNPADDED (per-texture h*w rows, row-cliff rule) with the
+    # bilinear-texturing lever as bitmap_plan.  The quad
+    # table is UNPADDED (per-texture h*w rows) with the
     # wrap-around neighbourhood baked in, matching the % wraps below; only
     # the dx/dy channels are carried (differentiate's blue is always 0).
     # stop_gradient atlas -> the non-differentiable raw path is safe.
@@ -410,7 +335,7 @@ def apply_bump(packed: ScenePacked, static: SceneStatic, winc, hit, onehot=None)
     key = _quad_row_key(
         static.bump_sizes, b, list(range(len(static.bump_sizes))), ixi, iyi
     )
-    g = row_gather_raw(quads, key)
+    g = quads[key]
     d = (
         g[..., 0:2] * (1 - p) * (1 - q)
         + g[..., 2:4] * p * (1 - q)
@@ -439,7 +364,7 @@ def shade_direct(packed: ScenePacked, static: SceneStatic, ray_dir, hit, winc, g
     ``geom_normal``: the pre-bump GEOMETRIC normal for the shadow-origin
     offset when the BumpTexture extension perturbed hit["normal"] — bump
     is a shading-normal trick, visibility rays offset along the geometric
-    surface (matches the fused kernel's in-VMEM shadow scans and the
+    surface (matches the fused kernel's in-kernel shadow scans and the
     oracle, see oracle/renderer._direct_light)."""
     skind = shader_kind_of(static, winc)
     onehot = node_onehot(static, winc)

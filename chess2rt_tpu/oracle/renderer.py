@@ -2,7 +2,7 @@
 
 A direct, vectorized-over-rays transliteration of the reference renderer's
 math (reference: source/rt/{renderer,geometry,node,shader,texture,camera,
-scene}.d).  This is the ground truth the TPU path is validated against
+scene}.d).  This is the ground truth the device path is validated against
 (SURVEY.md §4: the reference ships no golden framebuffers, so this oracle
 *is* the golden generator).  It is deliberately slow and simple: plain
 numpy, float64 geometry / float32 color like the reference, Python loops
@@ -588,7 +588,7 @@ class OracleRenderer:
         offset when it differs from the shading normal N — the BumpTexture
         extension's convention: bump perturbs the SHADING normal only,
         visibility rays offset along the geometric surface (the standard
-        production-renderer choice, and what the fused kernel's in-VMEM
+        production-renderer choice, and what the fused kernel's in-kernel
         shadow scans do — they run before the XLA-side perturbation)."""
         n = ray_dir.shape[0]
         lam = np.zeros((n, 3), dtype=np.float64)

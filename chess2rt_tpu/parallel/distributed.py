@@ -1,18 +1,18 @@
-"""Multi-host startup (SURVEY.md §5.8).
+"""Multi-process startup (SURVEY.md §5.8).
 
-The reference has no process launcher (single OS process + thread pool);
-the TPU-native equivalent is ``jax.distributed.initialize`` + a mesh over
-every chip of every host.  On Cloud TPU pods the coordinator/process
-environment is auto-detected; elsewhere pass them explicitly.  After
-``initialize_distributed`` the rest of the framework is unchanged:
-``make_mesh()`` sees all global devices, pixel shards land per-host, and
-the gradient all-reduce rides ICI within a slice and DCN across hosts.
-
-Typical pod usage (same script on every host):
+The reference has no process launcher (single OS process + thread pool).
+Here one process drives every card of its host: ``make_mesh()`` over
+``jax.devices()`` needs no distributed runtime at all, which is the
+single-process path and the default.  Several processes (several hosts,
+or one process per card) join through ``jax.distributed.initialize`` with
+an explicit coordinator address, process count and process id — nothing
+is auto-detected.  After ``initialize_distributed`` the rest of the
+framework is unchanged: ``make_mesh()`` sees all global devices, pixel
+shards land per process, and the gradient all-reduce is one collective.
 
     from chess2rt_tpu.parallel import distributed, make_mesh
-    distributed.initialize_distributed()        # auto-detect on Cloud TPU
-    mesh = make_mesh()                          # all chips, all hosts
+    distributed.initialize_distributed("host0:1234", num_processes=2, process_id=i)
+    mesh = make_mesh()                          # all cards, all processes
     fn = make_sharded_render_fn(static, mesh)
 """
 
@@ -28,8 +28,9 @@ def initialize_distributed(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> dict:
-    """Bring up the multi-host runtime; no-op when already initialized or
-    when running single-process.  Returns a small info dict."""
+    """Join a multi-process runtime when a coordinator is given; without
+    one, or when already initialized, this process runs alone and drives
+    every local device.  Returns a small info dict."""
     already = getattr(jax.distributed, "is_initialized", lambda: False)()
     if not already and (coordinator_address or num_processes):
         jax.distributed.initialize(
@@ -37,38 +38,6 @@ def initialize_distributed(
             num_processes=num_processes,
             process_id=process_id,
         )
-    elif not already:
-        try:
-            jax.distributed.initialize()  # Cloud TPU auto-detection
-        except RuntimeError as e:
-            # "must be called before any JAX calls": the backend is already
-            # initialized — too late for a multi-host bring-up, which is
-            # fine single-process (the CLI calls us before any JAX op; a
-            # library user who touched JAX first just runs single-process).
-            # Any OTHER RuntimeError (broken coordinator on a real pod)
-            # propagates: silently continuing with a wrong global device
-            # view would corrupt sharding.
-            if "must be called before" not in str(e):
-                raise
-            import warnings
-
-            warnings.warn(
-                f"jax backend already initialized; continuing single-process ({e})",
-                stacklevel=2,
-            )
-        except ValueError as e:
-            # ValueError = auto-detection found no multi-process environment
-            # (the expected single-process case) — continue, but say so.
-            # Anything else (RuntimeError: broken coordinator on a real pod,
-            # connection failures) propagates: silently continuing with a
-            # wrong global device view would corrupt sharding.
-            import warnings
-
-            warnings.warn(
-                f"jax.distributed auto-detection unavailable; continuing "
-                f"single-process ({e})",
-                stacklevel=2,
-            )
     return {
         "process_index": jax.process_index(),
         "process_count": jax.process_count(),

@@ -2,7 +2,7 @@
 
 The reference splits the frame into bucketSize^2 rectangles visited in a
 zigzag (boustrophedon) row order — a cache/NUMA-friendly scan for its
-thread pool.  On TPU the wavefront renders the whole frame at once, so
+thread pool.  On the device the wavefront renders the whole frame at once, so
 buckets survive as (a) the progressive-display order for interactive
 preview streaming and (b) the pixel-slab decomposition behind
 SceneStatic.chunk_pixels.  This module reproduces the exact reference

@@ -1,4 +1,4 @@
-"""The TPU render pipeline: fixed-depth wavefront under one jit.
+"""The device render pipeline: fixed-depth wavefront under one jit.
 
 Maps the reference's 3-pass recursive renderer (renderer.d:83-189, :325-463)
 onto XLA-friendly structure:
@@ -31,6 +31,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..dispatch import INTERPRET, XLA, kernel_mode, note_xla_coverage
 from ..models.packed import (
     LAMBERT,
     PHONG,
@@ -193,8 +194,8 @@ def _run_rounds(packed, static, carry, n_rounds):
     def one_round(c):
         # differentiable early exit: a round with an all-dead wavefront is
         # exactly the identity (every contribution is alive-masked), so
-        # skip its compute — and its backward — with a cond.  TPU executes
-        # only the taken branch, and cond is reverse-differentiable, which
+        # skip its compute — and its backward — with a cond.  A cond
+        # executes only the taken branch, and is reverse-differentiable, which
         # lax.while_loop's early exit is not.
         return jax.lax.cond(
             c[2].any(),
@@ -204,9 +205,8 @@ def _run_rounds(packed, static, carry, n_rounds):
         )
 
     if static.remat_rounds:
-        # Without remat, each scan step stores residuals like f32[N, 1]
-        # that TPU tiling pads 128x -> HBM blowup in the backward.  The
-        # policy keeps the shadow-visibility booleans (checkpoint_name in
+        # Without remat, each scan step stores its residuals for the
+        # backward.  The policy keeps the shadow-visibility booleans (checkpoint_name in
         # shade_direct): they are cheap to store, their producers (the
         # per-light any-hit scans) have zero VJP, and saving them removes
         # those scans from the backward recompute entirely.
@@ -228,10 +228,8 @@ def compact_indices(alive, n: int, cap: int):
     callers mask values with ``arange(cap) < count`` and the sentinel
     makes scatters drop / gathers clamp harmlessly).
 
-    Built as ONE lax.sort: TPU's bitonic sort of 2M int32 keys measured
-    3.3 ms on v5e (round 3) vs ~10 ms for the cumsum + drop-guarded
-    scatter-set and ~20 ms for a cumsum + searchsorted — sorting the
-    live-index keys IS the compaction."""
+    Built as ONE lax.sort: sorting the live-index keys IS the compaction
+    (no cumsum + drop-guarded scatter-set, no searchsorted)."""
     keys = jnp.where(alive, jnp.arange(n, dtype=jnp.int32), n)
     out = jax.lax.sort(keys)
     if cap <= n:
@@ -270,13 +268,10 @@ def continue_bounces(packed, static, color, atten, alive, orig, dir, n_rounds):
         return color + out[0]
 
     def compact_path(color, atten, alive, orig, dir):
-        from ..ops.fastgather import row_gather
-
         sel = compact_indices(alive, n, cap)
         lane_live = jnp.arange(cap) < count  # slots past the live set are dead
-        # ONE merged row gather instead of three (XLA's TPU gather cost is
-        # per-index, so 3x [cap]<-[n,3] costs ~3x one [cap]<-[n,9])
-        g = row_gather(jnp.concatenate([atten, orig, dir], axis=-1), sel, True, True)
+        # ONE merged row gather instead of three: one index per lane
+        g = jnp.concatenate([atten, orig, dir], axis=-1)[sel]  # junk slots clamp
         sub = (
             jnp.zeros((cap, 3), dtype=color.dtype),
             g[:, 0:3],
@@ -544,7 +539,7 @@ def render_frame(packed: ScenePacked, static: SceneStatic, key=None):
     build_render_fn).
 
     With static.chunk_pixels set, the flat pixel batch is processed in
-    lax.map slabs of that many rays: peak HBM usage is bounded by the slab
+    lax.map slabs of that many rays: peak device memory is bounded by the slab
     size instead of the frame size (the reference's 48x48 bucket
     decomposition, renderer.d:194-213, reborn as a memory knob)."""
     if key is None:
@@ -552,14 +547,11 @@ def render_frame(packed: ScenePacked, static: SceneStatic, key=None):
     dt = packed.node_matrix.dtype
     W, H = static.width, static.height
 
-    if (
-        static.use_pallas
-        and dt == jnp.float32
-        and (jax.default_backend() == "tpu" or static.interpret_pallas)
-    ):
+    mode = kernel_mode(static, dt)
+    if mode != XLA:
         from ..ops import pallas_trace as PT
 
-        interp = static.interpret_pallas
+        interp = mode == INTERPRET
         if PT.supports(static):
             # fused Pallas round 0 (+ XLA bitmap gather / env / compacted
             # bounce rounds + AA loop); differentiable via the custom-VJP
@@ -573,6 +565,7 @@ def render_frame(packed: ScenePacked, static: SceneStatic, key=None):
             # chunked XLA pipeline) — the memory knob and the fused path
             # compose (round-3 VERDICT item 5).
             return PT.build_gi_renderer(static, W, H, interp)(packed, key)
+        note_xla_coverage("geometry, shader or ray-gen mode")
 
     ys, xs = jnp.meshgrid(jnp.arange(H, dtype=dt), jnp.arange(W, dtype=dt), indexing="ij")
     xf = xs.reshape(-1)

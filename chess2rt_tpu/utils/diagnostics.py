@@ -1,7 +1,7 @@
 """Observability & safety sweeps (SURVEY.md §5.1, §5.2, §5.5).
 
 The reference's introspection is a click-to-inspect pixel dump and ad-hoc
-wall-clock runs; its race story is language-level purity.  The TPU-native
+wall-clock runs; its race story is language-level purity.  The
 equivalents here:
 
 * ``wavefront_occupancy`` — alive-lane fraction per bounce round, the key

@@ -2,7 +2,7 @@
 
 The reference threads a std.experimental.logger through the GUI classes
 and printf-dumps scene loads and camera moves (gui_base.d:17-23,
-raytracer_demo.d:156).  The TPU-native equivalent owed by the survey is a
+raytracer_demo.d:156).  The equivalent owed by the survey is a
 *structured* metrics stream: one JSON record per event (frame rendered,
 scene loaded, checkpoint written), machine-parseable, with a process-wide
 default sink.

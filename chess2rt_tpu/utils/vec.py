@@ -2,7 +2,7 @@
 
 Works with either numpy or jax.numpy inputs (all functions are pure and only
 use operators / ufuncs available in both).  The reference keeps geometry in
-`vec3d` (double); the TPU path uses float32 arrays shaped `[..., 3]` and the
+`vec3d` (double); the device path uses float32 arrays shaped `[..., 3]` and the
 oracle uses float64 (reference: source/rt/imported_types.d).
 """
 

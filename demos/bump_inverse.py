@@ -3,8 +3,8 @@ strength and a surface albedo from a target image, on hardware, via the
 bump hybrid's custom VJP (ops/pallas_grad.build_bump_round0 — the fast
 kernel-record forward, the tangent-carrying leaf-pinned reshade backward).
 
-Scene: the demos/bump_probe.py coverage scene with the CSG node left
-un-bumped, so the hybrid takes its FAST forward (_fast_bump_ok) — the
+Scene: the bump coverage scene (plane, sphere, scaled cube, CSG diff; the
+same as tests/test_bump.py's) with the CSG node left un-bumped, so the hybrid takes its FAST forward (_fast_bump_ok) — the
 fit exercises exactly the production bump path.  The demo perturbs
 ``bump_strength`` (x0.3) and the shared Lambert albedo (x0.6), recovers
 both with Adam on pixel L2, and finishes with an on-hardware central-
@@ -13,7 +13,7 @@ normal linearly and the texel picks don't depend on it, so with a fixed
 key the loss is a smooth deterministic function of it).
 
     python demos/bump_inverse.py --cpu     # quick CPU run
-    python demos/bump_inverse.py           # TPU (fused bump hybrid)
+    python demos/bump_inverse.py           # GPU (fused bump hybrid)
 
 Exits nonzero unless both parameters recover.
 """
@@ -35,8 +35,60 @@ import numpy as np
 sys.path.insert(0, ".")
 
 from chess2rt_tpu.grad import InverseProblem, fit  # noqa: E402
+from chess2rt_tpu.models import types as T  # noqa: E402
+from chess2rt_tpu.models.packed import pack_scene  # noqa: E402
 from chess2rt_tpu.render.pipeline import render_frame  # noqa: E402
-from demos.bump_probe import build  # noqa: E402
+
+
+def _heightmap():
+    hh, ww = 32, 32
+    yy, xx = np.mgrid[0:hh, 0:ww]
+    height = (0.5 + 0.5 * np.sin(xx * 0.25) * np.cos(yy * 0.2)).astype(np.float32)
+    return np.repeat(height[..., None], 3, axis=-1)
+
+
+def build(width, height, bump=True, csg_bump=True):
+    """Plane + sphere + scaled cube + CSG diff, every tangent case, all
+    sharing one Lambert albedo and one BumpTexture."""
+    sc = T.Scene()
+    sc.settings.frameWidth, sc.settings.frameHeight = width, height
+    sc.settings.AAEnabled = True
+    sc.settings.maxTraceDepth = 2
+    sc.camera = T.Camera(pos=(0, 60, -120), yaw=0, pitch=-15, fov=90)
+    sc.camera.set_frame_size(width, height)
+    sc.lights.append(T.PointLight(pos=(60, 180, -60), color=(1, 1, 1), power=40000))
+    lam = T.Lambert(name="l", color=(0.7, 0.7, 0.7))
+    sc.shaders.append(lam)
+    bt = T.BumpTexture(name="bt", scaling=0.05, data=_heightmap())
+    bt.strength = 8.0
+    sc.textures.append(bt)
+
+    def node(name, geom, transform=None, bumped=True):
+        sc.geometries.append(geom)
+        n = T.Node(name=name, geometry=geom, shader=lam)
+        if transform:
+            transform(n.transform)
+        if bump and bumped:
+            n.bumpmap = bt
+        sc.nodes.append(n)
+
+    node("floor", T.Plane(name="p", y=0, limit=200))
+    node("ball", T.Sphere(name="s", center=(0, 40, 30), R=30.0))
+    node(
+        "box",
+        T.Cube(name="c", center=(0, 0, 0), side=30.0),
+        transform=lambda tr: (tr.scale(1.5, 1.0, 1.0), tr.translate((-60, 20, 10))),
+    )
+    node(
+        "csg",
+        T.CsgDiff(
+            name="d",
+            left=T.Sphere(name="ds", center=(60, 25, 0), R=25.0),
+            right=T.Sphere(name="ds2", center=(60, 40, -15), R=20.0),
+        ),
+        bumped=csg_bump,
+    )
+    return pack_scene(sc, dtype=jnp.float32)
 
 
 def fd_check(packed, static, key):
@@ -44,10 +96,8 @@ def fd_check(packed, static, key):
 
     The autodiff side differentiates w.r.t. the FULL ScenePacked pytree
     and takes the directional derivative along bump_strength (dL/ds at
-    s=1 == <dL/dstrength, strength>): the scalar-scale and single-field
-    grad graphs are yet more triggers of the TPU fusion-pass SIGILL
-    (CLAUDE.md env facts), while the full-pytree grad is exactly the
-    graph the fit and `demos/bump_probe.py --grad` compile and run."""
+    s=1 == <dL/dstrength, strength>): the full-pytree grad is exactly
+    the graph the fit compiles and runs."""
 
     def loss(s):
         p = dataclasses.replace(packed, bump_strength=packed.bump_strength * s)
@@ -59,10 +109,9 @@ def fd_check(packed, static, key):
     g = float((g_packed.bump_strength * packed.bump_strength).sum())
     # h must stay under the cos_t > 0 kink spacing: unlike light power
     # (linear in the shading), strength moves lighting CUTOFF thresholds,
-    # so the loss is piecewise-smooth.  Measured ladder at 160x120 on TPU:
-    # h=1e-2 reads 30% off (kink crossings), 1e-3 still 15%, 3e-4
-    # converges to autodiff at rel ~1e-4 (kink density grows with the
-    # lane count; 96x72 CPU converged already at 1e-3)
+    # so the loss is piecewise-smooth: a large h reads tens of percent off
+    # (kink crossings); 3e-4 stays under the kink spacing (kink density
+    # grows with the lane count)
     h = 3e-4
     fd = (
         float(jax.jit(loss)(jnp.float32(1.0 + h)))

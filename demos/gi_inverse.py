@@ -1,9 +1,8 @@
 """GI inverse rendering: recover scene parameters THROUGH the path tracer
-(round-4 VERDICT item 2 — differentiating the reference's genuinely
-recursive mode, renderer.d:378-463, is the north-star extension at its
+(differentiating the reference's genuinely recursive mode, renderer.d:378-463, is the north-star extension at its
 hardest).
 
-Scene: lecture4 + a far Lambert bounce wall (the BASELINE GI config), NEE
+Scene: lecture4 (from $CHESS2RT_DATA_DIR) + a far Lambert bounce wall (the BASELINE GI config), NEE
 extension on.  The demo renders a target frame, perturbs the wall albedo
 and the light power, and recovers both with Adam on pixel L2 — gradients
 flow through every path segment (NEE direct terms + BRDF-sampled
@@ -13,7 +12,7 @@ parameter-independent, so with a fixed key the MC render is a smooth
 deterministic function of the parameters).
 
     python demos/gi_inverse.py --cpu               # quick CPU run
-    python demos/gi_inverse.py                     # TPU (fused GI kernel)
+    python demos/gi_inverse.py                     # GPU (fused GI kernel)
     python demos/gi_inverse.py --resample          # per-step fresh keys
                                                    # (SGD on the expected
                                                    # loss; recovers to the
@@ -44,13 +43,14 @@ from chess2rt_tpu.grad import InverseProblem, fit  # noqa: E402
 from chess2rt_tpu.models import types as T  # noqa: E402
 from chess2rt_tpu.models.packed import pack_scene  # noqa: E402
 from chess2rt_tpu.render.pipeline import render_frame  # noqa: E402
+from chess2rt_tpu.scene.assets import reference_scene  # noqa: E402
 from chess2rt_tpu.scene.loader import parse_scene_from_file  # noqa: E402
 
 
 def build(w, h, paths):
-    """The BASELINE GI scene (demos/gi_probe.py): lecture4 + far bounce
+    """The BASELINE GI scene: lecture4 + far bounce
     wall, NEE on, depth 5."""
-    sc = parse_scene_from_file("/root/reference/data/lecture4.sdl")
+    sc = parse_scene_from_file(reference_scene("lecture4.sdl"))
     sc.settings.frameWidth, sc.settings.frameHeight = w, h
     sc.camera.set_frame_size(w, h)
     sc.settings.AAEnabled = False

@@ -1,12 +1,12 @@
 """Inverse rendering demo (BASELINE config #5).
 
-Renders a target frame from lecture4 + a red sphere, perturbs material
+Renders a target frame from lecture4 (from $CHESS2RT_DATA_DIR) + a red sphere, perturbs material
 colors, light power, and the sphere position, then recovers them with
 Adam on pixel L2 — optionally sharded over all visible devices
 (--distributed).  Prints recovery errors; exits nonzero on failure.
 
     JAX_PLATFORMS=cpu python demos/inverse_render.py          # quick CPU run
-    python demos/inverse_render.py --distributed               # TPU / mesh
+    python demos/inverse_render.py --distributed               # GPU(s) / mesh
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ from chess2rt_tpu.grad import InverseProblem, fit  # noqa: E402
 from chess2rt_tpu.models import types as T  # noqa: E402
 from chess2rt_tpu.models.packed import pack_scene  # noqa: E402
 from chess2rt_tpu.render.pipeline import render_frame  # noqa: E402
+from chess2rt_tpu.scene.assets import reference_scene  # noqa: E402
 from chess2rt_tpu.scene.loader import parse_scene_from_file  # noqa: E402
 
 
@@ -42,7 +43,7 @@ def main():
     args = ap.parse_args()
     w, h = (int(v) for v in args.size.split("x"))
 
-    sc = parse_scene_from_file("/root/reference/data/lecture4.sdl")
+    sc = parse_scene_from_file(reference_scene("lecture4.sdl"))
     sc.settings.frameWidth, sc.settings.frameHeight = w, h
     sc.camera.set_frame_size(w, h)
     sc.settings.AAEnabled = False

@@ -6,11 +6,11 @@ value_and_grad step (pixel-sharded backward + the psum gradient
 all-reduce) — at every device count 1..N on the available platform and
 prints per-count rays/s + efficiency vs linear.
 
-On the current single-TPU-chip environment this runs on the virtual CPU
-mesh (methodology validation only — CPU "devices" share the same socket,
-so efficiency there measures harness + collective overhead, not ICI).  On
-a real pod slice, run under `jax.distributed.initialize` and the same
-code shards across all chips/hosts.
+With ``--cpu`` it runs on the virtual CPU mesh (methodology validation
+only — CPU "devices" share the same socket, so efficiency there measures
+harness + collective overhead, not the interconnect).  Without it, it runs
+on every visible GPU of the host (one process drives them all), and under
+``jax.distributed.initialize`` across hosts.
 
     python demos/scaling_bench.py --cpu --devices 8 --size 640x480
     python demos/scaling_bench.py --cpu --grad --out SCALING_cpu.json
@@ -37,7 +37,7 @@ def main():
                          "psum all-reduce) instead of the forward render")
     ap.add_argument("--fused", action="store_true",
                     help="run the fused Pallas per-shard path (interpret "
-                         "mode off-TPU — SLOW on CPU, methodology only)")
+                         "mode on the CPU — SLOW, methodology only)")
     ap.add_argument("--out", default=None, help="also write the rows to this JSON file")
     args = ap.parse_args()
 
@@ -62,20 +62,14 @@ def main():
         make_sharded_render_fn,
         make_sharded_value_and_grad,
     )
-    from chess2rt_tpu.scene.loader import parse_scene_from_file
+    from chess2rt_tpu.scene.assets import load_flagship
     from chess2rt_tpu.utils.diagnostics import frame_ray_stats
 
     w, h = (int(v) for v in args.size.split("x"))
-    sc = parse_scene_from_file("/root/reference/data/lecture5.sdl")
-    sc.settings.frameWidth, sc.settings.frameHeight = w, h
-    sc.camera.set_frame_size(w, h)
-    sc.settings.AAEnabled = False
-    packed, static = pack_scene(sc, dtype=jnp.float32)
+    packed, static = pack_scene(load_flagship(w, h, aa=False), dtype=jnp.float32)
     if args.fused:
-        static = dataclasses.replace(
-            static, use_pallas=True,
-            interpret_pallas=jax.default_backend() != "tpu",
-        )
+        # compiled on the GPU; the interpreter stands in on the CPU
+        static = dataclasses.replace(static, use_pallas=True, interpret_pallas=True)
 
     devices = jax.devices()
     counts = [c for c in (1, 2, 4, 8, 16, 32) if c <= len(devices)]
@@ -140,7 +134,7 @@ def main():
             size=args.size,
             note=(
                 "virtual CPU mesh methodology run — devices share one socket, "
-                "so efficiency bounds harness+collective overhead, not ICI"
+                "so efficiency bounds harness+collective overhead, not the interconnect"
             )
             if args.cpu
             else "",

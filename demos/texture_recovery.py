@@ -1,8 +1,8 @@
 """Texture recovery: reconstruct bitmap texel values from a rendered image.
 
 The showcase for the differentiable texel path (deferred quad gather
-forward, banded MXU histogram VJP — ops/shade.quad_gather_flat,
-ops/texel_hist.py): render lecture5 (bitmap floor + bitmap world sphere +
+forward, sorted scatter-add VJP — ops/shade.quad_gather_flat): render
+lecture5 (from $CHESS2RT_DATA_DIR) (bitmap floor + bitmap world sphere +
 mirror) as the target, replace the texture atlas with flat gray, then
 recover the visible texels with Adam on pixel L2 through the fused
 kernel forward and the leaf-pinned custom-VJP backward.
@@ -12,7 +12,7 @@ inverse rendering); recovery error is therefore reported over the texels
 Adam touched, plus the re-rendered image error over ALL pixels.
 
     python demos/texture_recovery.py --cpu --size 160x120 --steps 60
-    python demos/texture_recovery.py                      # TPU defaults
+    python demos/texture_recovery.py                      # GPU defaults
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ sys.path.insert(0, ".")
 from chess2rt_tpu.grad import InverseProblem, fit  # noqa: E402
 from chess2rt_tpu.models.packed import pack_scene  # noqa: E402
 from chess2rt_tpu.render.pipeline import render_frame  # noqa: E402
+from chess2rt_tpu.scene.assets import reference_scene  # noqa: E402
 from chess2rt_tpu.scene.loader import parse_scene_from_file  # noqa: E402
 
 
@@ -47,7 +48,7 @@ def main():
     args = ap.parse_args()
     w, h = (int(v) for v in args.size.split("x"))
 
-    sc = parse_scene_from_file("/root/reference/data/lecture5.sdl")
+    sc = parse_scene_from_file(reference_scene("lecture5.sdl"))
     sc.settings.frameWidth, sc.settings.frameHeight = w, h
     sc.camera.set_frame_size(w, h)
     sc.settings.AAEnabled = False

@@ -5,7 +5,7 @@ gradient cubemap (horizon haze -> zenith blue), attaches it to the zaphod
 scene's Environment (the reference's miss-shader hook, environment.d:5-15,
 completed by ops/env.py), and renders at the requested size.
 
-    python demos/zaphod_skybox.py --size 1920x1080 -o /tmp/zaphod_sky.bmp
+    python demos/zaphod_skybox.py --size 1920x1080 -o zaphod_sky.bmp
 """
 
 from __future__ import annotations
@@ -38,14 +38,12 @@ def make_sky_cubemap(size: int = 64) -> np.ndarray:
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--size", default="640x430")
-    ap.add_argument("-o", "--output", default="/tmp/zaphod_sky.bmp")
+    ap.add_argument("-o", "--output", default="zaphod_sky.bmp")
     ap.add_argument("--samples", type=int, default=None, help="override DoF samples")
     ap.add_argument("--cpu", action="store_true", help="force the CPU backend")
     ap.add_argument("--xla", action="store_true",
                     help="use the pure-XLA pipeline instead of the fused Pallas "
-                         "ray-input kernel (the default: 1.93s vs 3.16s "
-                         "steady-state at 1080p on v5e after the round-3 merged "
-                         "texel+env fold gather; Mosaic first-compile is slower)")
+                         "ray-input kernel")
     ap.add_argument("--adaptive-aa", action="store_true",
                     help="honor the needs-AA mask (adaptiveAA extension): the 4 "
                          "AA taps — each a full 25-sample DoF loop — run "
@@ -61,9 +59,10 @@ def main():
     from chess2rt_tpu.imageio import save_image
     from chess2rt_tpu.models.packed import pack_scene
     from chess2rt_tpu.render.pipeline import render_frame
+    from chess2rt_tpu.scene.assets import reference_scene
     from chess2rt_tpu.scene.loader import parse_scene_from_file
 
-    sc = parse_scene_from_file("/root/reference/data/zaphod.sdl")
+    sc = parse_scene_from_file(reference_scene("zaphod.sdl"))
     sc.settings.frameWidth, sc.settings.frameHeight = w, h
     sc.camera.set_frame_size(w, h)
     if args.samples:
@@ -73,8 +72,8 @@ def main():
     packed, static = pack_scene(sc)
     import dataclasses
 
-    if not args.xla and not args.cpu:
-        static = dataclasses.replace(static, use_pallas=True)
+    if args.xla:
+        static = dataclasses.replace(static, use_pallas=False)
     if args.adaptive_aa:
         static = dataclasses.replace(static, aa_adaptive=True)
     fn = jax.jit(lambda p, k: render_frame(p, static, k))

@@ -1,6 +1,6 @@
 // Host-side framebuffer codec: float RGB -> sRGB u8 -> BMP bytes.
 //
-// TPU-native equivalent of the reference's native (D) host runtime around
+// Equivalent of the reference's native (D) host runtime around
 // the renderer: the per-frame Color->uint conversion through the cached
 // sRGB LUT (reference source/rt/color.d:194-228) and the 24-bpp
 // bottom-up BMP writer (reference imageio/bmp.d:195-237).  This is the

@@ -178,9 +178,7 @@ class TestBumpRender:
 
     def test_pallas_dispatch_included(self):
         """Bump scenes dispatch to the fused path via the bump HYBRID
-        (ops/pallas_grad.build_bump_round0) — it is also the only path
-        that compiles on real TPU (scene_closest(tangents=True) crashes
-        the XLA TPU fusion pass, demos/bump_probe.py)."""
+        (ops/pallas_grad.build_bump_round0)."""
         from chess2rt_tpu.ops.pallas_trace import supports
 
         _, static = pack_scene(_scene(bump=True), dtype=jnp.float32)
@@ -191,8 +189,8 @@ class TestBumpRender:
 
 @pytest.mark.slow  # interpret-mode fused kernels: heavy by design
 class TestBumpFused:
-    """The bump HYBRID on the fused path (round-4 VERDICT item 4): the
-    kernel pins (win, vis, t, N) in VMEM, a differentiable XLA reshade
+    """The bump HYBRID on the fused path: the kernel pins (win, vis, t,
+    N) in registers, a differentiable XLA reshade
     with tangent-carrying leaf-pinned records applies the perturbation
     (ops/pallas_grad.build_bump_round0).  Interpret-mode Pallas on CPU."""
 

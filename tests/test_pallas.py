@@ -1,5 +1,5 @@
 """Pallas fused primary-pass kernel vs the XLA pipeline (interpret mode on
-CPU; the compiled path is exercised on real TPU by bench/perf scripts)."""
+CPU; the compiled path is exercised on the GPU by chip_smoke.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -509,7 +509,7 @@ class TestRefraction:
 class TestMergedEnvBitmapGather:
     """combine_outputs merges the deferred bitmap-texel gather and the
     miss-ray cubemap gather into ONE per-ray row gather when a scene has
-    both (pallas_trace.combine_outputs; gather cost on TPU is per-index)."""
+    both (pallas_trace.combine_outputs: one index per ray instead of two)."""
 
     def _scene(self, data_dir):
         sc = parse_scene_from_file(str(data_dir / "zaphod.sdl"))
@@ -542,32 +542,24 @@ class TestMergedEnvBitmapGather:
         d = np.abs(out - ref).max(-1)
         assert (d > 2e-3).sum() <= 3, ((d > 2e-3).sum(), d.max())
 
-    def test_grads_match_plain_modes(self, data_dir):
-        """The merged gather's texel VJP must produce the same atlas AND
-        cubemap gradients in histogram / sorted / plain scatter modes."""
+    def test_merged_gather_grads_flow(self, data_dir):
+        """The merged gather's texel VJP gives finite, non-zero atlas AND
+        cubemap gradients through the fused path."""
         import dataclasses
 
         sc = self._scene(data_dir)
         packed, static = pack_scene(sc, dtype=jnp.float32)
-        static = dataclasses.replace(
+        st = dataclasses.replace(
             static, use_pallas=True, interpret_pallas=True, train_textures=True
         )
         key = jax.random.PRNGKey(5)
 
-        def loss_for(mode):
-            st = dataclasses.replace(static, texel_grad_mode=mode)
+        def loss(p):
+            img = render_frame(p, st, key)
+            return (img * jnp.cos(jnp.arange(img.size).reshape(img.shape))).sum()
 
-            def loss(p):
-                img = render_frame(p, st, key)
-                return (img * jnp.cos(jnp.arange(img.size).reshape(img.shape))).sum()
-
-            return jax.grad(loss)(packed)
-
-        g_hist = loss_for("histogram")
-        g_scatter = loss_for("scatter")
+        g = jax.grad(loss)(packed)
         for name in ("bitmap_atlas", "env_cubemap"):
-            a = np.asarray(getattr(g_hist, name))
-            b = np.asarray(getattr(g_scatter, name))
-            assert np.isfinite(a).all() and np.isfinite(b).all()
-            np.testing.assert_allclose(a, b, rtol=2e-5, atol=2e-6, err_msg=name)
+            a = np.asarray(getattr(g, name))
+            assert np.isfinite(a).all(), name
             assert np.abs(a).sum() > 0, name

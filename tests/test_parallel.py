@@ -378,7 +378,7 @@ class TestShardedFusedMC:
 
 class TestMesh2D:
     """2-D (hosts x chips) mesh (SURVEY.md §5.8, round-2 VERDICT item 6):
-    same math as the 1-D mesh; the all-reduce decomposes into ICI + DCN
+    same math as the 1-D mesh; the all-reduce decomposes into two
     stages on real hardware."""
 
     def test_make_mesh_2d_shape(self):
@@ -472,10 +472,9 @@ class TestMultiProcess:
 
     @pytest.mark.slow
     def test_2x2_hosts_chips_mesh_across_processes(self):
-        """Round-3 VERDICT item 9: the 2-D (hosts x chips) mesh across REAL
-        OS-process boundaries — 2 processes x 2 local devices, the host
-        psum stage crossing processes (the DCN stage on a pod), the chip
-        stage staying process-local (ICI).  Loss + grads must match the
+        """The 2-D (hosts x chips) mesh across REAL OS-process boundaries —
+        2 processes x 2 local devices, the host psum stage crossing
+        processes, the chip stage staying process-local.  Loss + grads must match the
         in-process mesh (per-shard-grad psum => layout independent)."""
         from chess2rt_tpu.parallel.mp_dryrun import _build, run_multiprocess_dryrun
 
@@ -496,9 +495,8 @@ class TestMultiProcess:
 
     @pytest.mark.slow
     def test_pod_scaling_recipe_virtual_mesh(self, tmp_path):
-        """Round-4 VERDICT item 7: the pod-day recipe (demos/pod_scaling.py,
-        the one command that fills BASELINE.md's scaling row on real
-        hardware) must run end-to-end on the virtual mesh and emit
+        """The scaling recipe (demos/pod_scaling.py, the one command that
+        fills BASELINE.md's scaling row on real hardware) must run end-to-end on the virtual mesh and emit
         well-formed forward+grad rows at every device count."""
         import json
         import os

@@ -1,9 +1,9 @@
-"""TPU-path vs oracle parity (golden) tests.
+"""Device-path vs oracle parity (golden) tests.
 
 The oracle (float64 numpy transliteration of the reference math) generates
 the golden frames; the JAX pipeline must match:
 * in float64: u8-pixel-exact after the reference's sRGB LUT quantization,
-* in float32 (TPU production dtype): statistically tight — the only real
+* in float32 (production dtype): statistically tight — the only real
   divergence is fractional-UV precision at extreme plane distances (see
   test docstrings).
 """
@@ -70,7 +70,7 @@ class TestF64Exact:
 
 
 class TestF32Production:
-    """float32 (TPU dtype) stays u8-tight against the f64 oracle."""
+    """float32 (production dtype) stays u8-tight against the f64 oracle."""
 
     def test_lecture4(self, data_dir):
         sc = _load(data_dir, "lecture4.sdl")
